@@ -1,11 +1,11 @@
-// slimm_tpu native runtime: streaming SAM/BAM/BGZF decoder + single-core
+// slimm_jax native runtime: streaming SAM/BAM/BGZF decoder + single-core
 // baseline.
 //
-// TPU-native data plane (SURVEY.md §2.4 "Native decode"): decodes alignment
+// Native data plane (SURVEY.md §2.4 "Native decode"): decodes alignment
 // files into fixed-width int32 arrays (read_id, rid, pos) with the read-name
 // dictionary (qname + ".1"/".2" pair suffix, reference slimm.hpp:204-209)
 // applied in C++, ready for zero-copy device transfer.  Exposed through a
-// plain C ABI consumed via ctypes (slimm_tpu/io/native.py).
+// plain C ABI consumed via ctypes (slimm_jax/io/native.py).
 //
 // Unlike the reference's SeqAn stream (one record at a time,
 // misc.hpp:498-522) the decoder is CHUNK-streaming with bounded raw memory:
@@ -25,8 +25,8 @@
 //
 // Also contains a faithful single-threaded C++ implementation of the
 // profiler hot loops (reference slimm.hpp:191-303, 351-392, 516-611
-// semantics, re-written from the spec in slimm_tpu/oracle.py) used as the
-// single-core baseline that bench.py compares the TPU engine against.
+// semantics, re-written from the spec in slimm_jax/oracle.py) used as the
+// single-core baseline that bench.py compares the device engine against.
 //
 // Build: make -C native  (g++ -O3 -march=native, links zlib + pthread).
 
@@ -1891,7 +1891,7 @@ namespace {
 //
 // The serial SAM pipeline caps at two threads (tokenizer + consumer); on
 // multi-core hosts the decode — not the device — is the end-to-end
-// bottleneck (the fused TPU pipeline runs >10x one core).  For
+// bottleneck (the fused device pipeline outruns one core).  For
 // memory-mapped plain-text SAM the file splits at line boundaries into N
 // byte ranges decoded by independent workers (each with its own
 // tokenizer, interner and first-hit dedup — the multi-host host-sharded
@@ -2817,7 +2817,7 @@ void stpu_stream_take_v2x(void* h, int64_t n, int64_t n_pad,
 void stpu_stream_close(void* h) { delete static_cast<StpuStream*>(h); }
 
 // Timed first-hit dedup of raw (read, contig) records — the host-side stage
-// of the TPU pipeline, exposed so benchmarks can charge its cost to the
+// of the device pipeline, exposed so benchmarks can charge its cost to the
 // end-to-end number.  Fills out arrays (sized >= n_records); returns the
 // number of targets kept, with *out_secs set to the wall time.
 int64_t stpu_dedup_targets(int64_t n_records, const int32_t* read_id,
@@ -2860,7 +2860,7 @@ int64_t stpu_dedup_targets(int64_t n_records, const int32_t* read_id,
 //                         enums as their underlying int (types/common.hpp)
 // stpu_sldb_roundtrip parses an .sldb with strict bounds checks and
 // re-serializes it preserving entry order; byte-equality against the
-// Python writer (slimm_tpu/database.py) cross-validates both
+// Python writer (slimm_jax/database.py) cross-validates both
 // implementations (tests/test_database.py).
 
 namespace {

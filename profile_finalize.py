@@ -1,4 +1,4 @@
-"""Host-finalize profile at full-RefSeq cardinality (VERDICT r3 item 8).
+"""Host-finalize profile at full-RefSeq cardinality.
 
 Builds a synthetic ProfileState with N_CONTIGS contigs whose lineages span
 ~N_TAXA distinct taxids, fills taxon_id__read_count / taxon_id__children at
@@ -25,9 +25,9 @@ import time
 
 import numpy as np
 
-from slimm_tpu.config import ProfileOptions
-from slimm_tpu.state import ProfileState
-from slimm_tpu.taxonomy import LINEAGE_LENGTH
+from slimm_jax.config import ProfileOptions
+from slimm_jax.state import ProfileState
+from slimm_jax.taxonomy import LINEAGE_LENGTH
 
 
 def build_synthetic(n_contigs: int, n_lca: int, seed: int = 0,
@@ -119,7 +119,7 @@ def main():
           f"({len(st.taxon_id__read_count)} taxids after propagation)")
 
     st.compute_abundances()
-    from slimm_tpu.taxonomy import RANK_LIST
+    from slimm_jax.taxonomy import RANK_LIST
     t2 = time.perf_counter()
     total_rows = 0
     for rank in RANK_LIST[1:]:

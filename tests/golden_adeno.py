@@ -22,7 +22,7 @@ deterministic profiling fixture from those REAL sequences:
 
 The golden `_profile/_raw/_coverage` TSV bytes under tests/golden/ are
 produced by the scalar oracle (the faithful reimplementation of the
-reference semantics, slimm_tpu/oracle.py) and locked byte-for-byte;
+reference semantics, slimm_jax/oracle.py) and locked byte-for-byte;
 regenerate with `python tests/golden_adeno.py` after an INTENDED
 behavior change.
 """
@@ -169,8 +169,8 @@ class AdenoDataset:
 
 
 def build_adeno_db(ds: AdenoDataset):
-    from slimm_tpu.config import BuildOptions
-    from slimm_tpu.database import build_database
+    from slimm_jax.config import BuildOptions
+    from slimm_jax.database import build_database
 
     return build_database(BuildOptions(
         fasta_path=ds.fasta_path, ac__taxid_paths=[ds.acc2taxid_path],
@@ -179,9 +179,9 @@ def build_adeno_db(ds: AdenoDataset):
 
 
 def oracle_state(ds: AdenoDataset, db, options=None):
-    from slimm_tpu.config import ProfileOptions
-    from slimm_tpu.io import AlignmentFile
-    from slimm_tpu.oracle import OracleProfiler
+    from slimm_jax.config import ProfileOptions
+    from slimm_jax.io import AlignmentFile
+    from slimm_jax.oracle import OracleProfiler
 
     af = AlignmentFile(ds.sam_path)
     prof = OracleProfiler(options or ProfileOptions(), db.ac__taxid,
@@ -192,7 +192,7 @@ def oracle_state(ds: AdenoDataset, db, options=None):
 
 
 def write_reports(state, out_dir: str, sam_path: str) -> list[str]:
-    from slimm_tpu.engine.reports import (write_abundance, write_coverage,
+    from slimm_jax.engine.reports import (write_abundance, write_coverage,
                                           write_raw_stat)
 
     paths = [write_abundance(state, out_dir + "/", sam_path),

@@ -2,7 +2,7 @@ import os
 
 import pytest
 
-from slimm_tpu.cli import main
+from slimm_jax.cli import main
 
 from tests.toy import build_toy_dataset
 
@@ -121,6 +121,13 @@ def test_profile_json_stats(built_db, toy_dir, tmp_path):
     assert r["hits_count"] > 0
     assert r["matches_count"] > 0
     assert 0.0 <= r["coverage_cut_off"] <= 1.0
+    # every counter equals the scalar oracle's
+    orc_stats = os.path.join(str(tmp_path), "orc.jsonl")
+    assert main(["profile", "--no-device", "-o", out_prefix, "--json-stats",
+                 orc_stats, built_db, toy_dir.sam_path]) == 0
+    (o,) = [json.loads(l) for l in open(orc_stats)]
+    assert r == o
+    assert r["lca_reads"] > 0 and r["cov_mass"] > 0
 
 
 def test_profile_corrupt_input_exits_1(built_db, toy_dir, tmp_path, capsys):
@@ -131,14 +138,14 @@ def test_profile_corrupt_input_exits_1(built_db, toy_dir, tmp_path, capsys):
     data = bgzf_compress(make_bam_body(toy_dir.records))
     bad = tmp_path / "bad.bam"
     bad.write_bytes(data[:len(data) // 2])
-    from slimm_tpu.cli import main
+    from slimm_jax.cli import main
     rc = main(["profile", "-o", str(tmp_path / "o"), built_db, str(bad)])
     assert rc == 1
     assert "[ERROR]" in capsys.readouterr().err
 
 
 def test_profile_missing_db_exits_1(toy_dir, tmp_path, capsys):
-    from slimm_tpu.cli import main
+    from slimm_jax.cli import main
     rc = main(["profile", "-o", str(tmp_path / "o"),
                str(tmp_path / "nope.sldb"), toy_dir.sam_path])
     assert rc == 1
@@ -162,3 +169,40 @@ def test_profile_scaleout_flags_identical_tsv(built_db, toy_dir, tmp_path):
     ref = open(os.path.join(plain, "toy-reads_profile.tsv")).read()
     assert open(os.path.join(sh, "toy-reads_profile.tsv")).read() == ref
     assert open(os.path.join(stream, "toy-reads_profile.tsv")).read() == ref
+
+
+def test_compile_cache_honours_env_dir(built_db, toy_dir, tmp_path):
+    # JAX_COMPILATION_CACHE_DIR set: the CLI's compiled programs land there
+    import subprocess
+    import sys
+
+    cache = tmp_path / "x"
+    env = dict(os.environ, JAX_COMPILATION_CACHE_DIR=str(cache),
+               JAX_ENABLE_COMPILATION_CACHE="true",
+               JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS="0")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-m", "slimm_jax", "profile", "-o",
+                        str(tmp_path / "o") + "/", built_db,
+                        toy_dir.sam_path], env=env, cwd=repo,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr
+    assert cache.is_dir() and any(cache.iterdir())
+
+
+def test_compile_cache_defaults_to_checkout(built_db, toy_dir, tmp_path,
+                                            monkeypatch):
+    # JAX_COMPILATION_CACHE_DIR unset: <checkout>/.jax_cache
+    import jax
+
+    from slimm_jax.utils.compile_cache import DEFAULT_CACHE_DIR
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert DEFAULT_CACHE_DIR == os.path.join(repo, ".jax_cache")
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        assert main(["profile", "-o", str(tmp_path) + "/", built_db,
+                     toy_dir.sam_path]) == 0
+        assert jax.config.jax_compilation_cache_dir == DEFAULT_CACHE_DIR
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

@@ -2,9 +2,9 @@ import os
 
 import numpy as np
 
-from slimm_tpu.database import SlimmDatabase, build_database, tensorize
-from slimm_tpu.config import BuildOptions
-from slimm_tpu.taxonomy import LINEAGE_LENGTH, Rank
+from slimm_jax.database import SlimmDatabase, build_database, tensorize
+from slimm_jax.config import BuildOptions
+from slimm_jax.taxonomy import LINEAGE_LENGTH, Rank
 
 from tests.toy import TOY_CONTIGS, build_toy_db
 
@@ -37,7 +37,7 @@ def test_build_database_missed_file(toy_dir):
 def test_build_database_native_matches_python(toy_dir):
     # the C++ acc2taxid scanner and the python batch loop must build the
     # exact same DB (incl. the missed set)
-    from slimm_tpu.io import native as native_mod
+    from slimm_jax.io import native as native_mod
     if not native_mod.available():
         import pytest
         pytest.skip("native library not built")
@@ -55,7 +55,7 @@ def test_native_acc2taxid_scan_semantics(tmp_path):
     # reference batch semantics (slimm_build.cpp:175-278): last occurrence
     # within a batch wins, resolution freezes at the batch boundary, parse
     # failures yield 0, early exit once everything resolved
-    from slimm_tpu.io import native as native_mod
+    from slimm_jax.io import native as native_mod
     if not native_mod.available():
         import pytest
         pytest.skip("native library not built")
@@ -69,7 +69,7 @@ def test_native_acc2taxid_scan_semantics(tmp_path):
         f.write("A4\tA4.1\n")            # no taxid column -> 0
         f.write("A6\tA6.1\t 600 x\t0\n")  # split()[0] == "600"
         f.write("A2\tA2.1\t999\t0\n")
-    from slimm_tpu.database import stream_acc2taxid_batches
+    from slimm_jax.database import stream_acc2taxid_batches
     for batch in (1000000, 3, 1):
         out = native_mod.acc2taxid_scan(
             p, ["A1", "A2", "A3", "A4", "A6", "MISSING"], batch)
@@ -148,7 +148,7 @@ def test_acc2taxid_header_line_parses_as_zero(tmp_path):
     # the reference does not skip the header; a failed int parse yields 0
     p = tmp_path / "m.acc2taxid"
     p.write_text("accession\taccession.version\ttaxid\tgi\nA1\tA1.1\t42\t0\n")
-    from slimm_tpu.database import stream_acc2taxid_batches
+    from slimm_jax.database import stream_acc2taxid_batches
     batches = list(stream_acc2taxid_batches(str(p), 10))
     assert batches == [{"accession": 0, "A1": 42}]
 
@@ -156,7 +156,7 @@ def test_acc2taxid_header_line_parses_as_zero(tmp_path):
 def _native_or_skip():
     import pytest
 
-    from slimm_tpu.io import native
+    from slimm_jax.io import native
     if not native.available():
         pytest.skip("native library not built")
     return native

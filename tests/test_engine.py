@@ -1,4 +1,4 @@
-"""Engine ↔ oracle parity: the TPU pipeline must reproduce the scalar
+"""Engine ↔ oracle parity: the device pipeline must reproduce the scalar
 reference semantics exactly (integer counts bit-equal; float reports
 identical at 6 significant digits because they are computed by shared code
 from identical integers)."""
@@ -8,10 +8,10 @@ import copy
 import numpy as np
 import pytest
 
-from slimm_tpu.config import EngineOptions, ProfileOptions
-from slimm_tpu.engine import profile_file
-from slimm_tpu.io import AlignmentFile
-from slimm_tpu.oracle import OracleProfiler
+from slimm_jax.config import EngineOptions, ProfileOptions
+from slimm_jax.engine import profile_file
+from slimm_jax.io import AlignmentFile
+from slimm_jax.oracle import OracleProfiler
 
 from tests.toy import build_toy_db, build_toy_dataset, make_records, write_sam
 
@@ -126,7 +126,7 @@ def test_engine_long_runs_doubling_scan(toy_dir):
 
 def _run_raw_device_dedup(toy_dir, records):
     """Engine path on RAW (non-dedup'd) records — on-device first-hit dedup."""
-    from slimm_tpu.engine.pipeline import profile_arrays
+    from slimm_jax.engine.pipeline import profile_arrays
 
     db = build_toy_db(toy_dir)
     sam_path = write_sam(toy_dir.dir, records, name="raw_case.sam")
@@ -180,7 +180,7 @@ def test_engine_device_dedup_wide_span_host_fallback(toy_dir):
 def test_batched_files_match_per_file(toy_dir, tmp_path):
     # K files with different record mixes (and thus different auto
     # bin_widths) through ONE batched dispatch == per-file dispatches
-    from slimm_tpu.engine.pipeline import profile_files_batched
+    from slimm_jax.engine.pipeline import profile_files_batched
 
     rng = np.random.default_rng(21)
     paths = []
@@ -221,7 +221,7 @@ def test_rank_all_pinned_output(toy_dir):
     assert by_tid["1224"][2] == "k__Bacteria|p__Proteobacteria"
     assert by_tid["1239"][2] == "k__Bacteria|p__Firmicutes"
     # catch-all closes abundance to 100 (float32 seq-sum of emitted rows)
-    from slimm_tpu.state import f32
+    from slimm_jax.state import f32
     total = f32(0.0)
     for r in rows:
         total = f32(total + f32(float(r[3])))
@@ -253,7 +253,7 @@ def test_rank_superkingdom_pinned_output(toy_dir):
 def test_verbose_rank_summary_line(toy_dir, tmp_path, capsys):
     # verbose per-rank summary (slimm.hpp:836-840): right-aligned count and
     # rank name, "bellow" typo verbatim
-    from slimm_tpu.engine.reports import write_abundance
+    from slimm_jax.engine.reports import write_abundance
 
     st_o, st_e = run_both(toy_dir, options=ProfileOptions(verbose=True))
     write_abundance(st_e, str(tmp_path / "out"), "toy-reads.sam")
@@ -344,8 +344,8 @@ def test_deep_bin_overflow_hits_packed_fallback():
     # must route the FULL fused program to the exact two-scatter fallback
     # (tests/test_ops.py covers _hist2 in isolation; this locks the
     # end-to-end counters)
-    from slimm_tpu.database import SlimmDatabase
-    from slimm_tpu.engine.pipeline import profile_arrays
+    from slimm_jax.database import SlimmDatabase
+    from slimm_jax.engine.pipeline import profile_arrays
 
     n = 70_000
     lineage = [9, 8, 7, 6, 5, 4, 3, 2]

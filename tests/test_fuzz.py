@@ -5,7 +5,7 @@ records, invalid reference ids, duplicate storms forcing the log-depth
 segment scans, single-contig inputs, shuffled record order, empty-seq
 records, every CLI option axis) and asserts
 
-  * full ProfileState equality between the TPU engine and the scalar
+  * full ProfileState equality between the device engine and the scalar
     oracle (assert_states_equal: counters, histograms, reports), and
   * the SURVEY §4 property invariants on the result: per-rank read-count
     sums never exceed matches, the catch-all abundance row closes the
@@ -21,10 +21,10 @@ import os
 import numpy as np
 import pytest
 
-from slimm_tpu.config import EngineOptions, ProfileOptions
-from slimm_tpu.engine import profile_file
-from slimm_tpu.io import AlignmentFile
-from slimm_tpu.oracle import OracleProfiler
+from slimm_jax.config import EngineOptions, ProfileOptions
+from slimm_jax.engine import profile_file
+from slimm_jax.io import AlignmentFile
+from slimm_jax.oracle import OracleProfiler
 
 from tests.test_engine import assert_states_equal
 from tests.toy import TOY_CONTIGS, build_toy_db, build_toy_dataset, write_sam
@@ -106,15 +106,15 @@ def check_invariants(st):
 
 
 def check_native_baseline(db, af, options, st_o, oracle):
-    """3-way cross-validation (VERDICT r4 #5): the native single-core C++
+    """3-way cross-validation: the native single-core C++
     baseline (stpu_baseline_profile — an INDEPENDENT implementation of the
     reference's hash-map hot loops, slimm.hpp:191-303) must reproduce the
     oracle's counters on every fuzz case.  This is the strongest available
     substitute for running the unbuildable reference binary: three
     implementations (scalar oracle, dense-tensor engine, C++ hash-map
     baseline) agreeing bit-for-bit across the randomized sweep."""
-    from slimm_tpu.database import tensorize
-    from slimm_tpu.io import native
+    from slimm_jax.database import tensorize
+    from slimm_jax.io import native
 
     if not native.available():
         return

@@ -1,5 +1,5 @@
-"""Golden-output harness on the reference's own example data (VERDICT r2
-item 6; SURVEY.md §4 item 1).
+"""Golden-output harness on the reference's own example data (SURVEY.md
+§4 item 1).
 
 The committed TSVs under tests/golden/ were produced by the scalar oracle
 over a deterministic fixture built from /root/reference/tests/example/
@@ -13,7 +13,7 @@ import os
 
 import pytest
 
-from slimm_tpu.config import EngineOptions, ProfileOptions
+from slimm_jax.config import EngineOptions, ProfileOptions
 
 from tests import golden_adeno as GA
 
@@ -54,7 +54,7 @@ def test_oracle_reproduces_golden_bytes(adeno, tmp_path):
 
 
 def test_engine_reproduces_golden_bytes(adeno, tmp_path):
-    from slimm_tpu.engine import profile_file
+    from slimm_jax.engine import profile_file
 
     ds, db = adeno
     opts = ProfileOptions(raw_output=True, coverage_output=True)
@@ -64,9 +64,9 @@ def test_engine_reproduces_golden_bytes(adeno, tmp_path):
 
 
 def test_streaming_sharded_reproduces_golden_bytes(adeno, tmp_path):
-    from slimm_tpu.engine.pipeline import profile_file_streaming
-    from slimm_tpu.io import native
-    from slimm_tpu.parallel import ShardedRunner
+    from slimm_jax.engine.pipeline import profile_file_streaming
+    from slimm_jax.io import native
+    from slimm_jax.parallel import ShardedRunner
 
     if not native.available():
         pytest.skip("native decoder not built")
@@ -81,7 +81,7 @@ def test_streaming_sharded_reproduces_golden_bytes(adeno, tmp_path):
 
 def test_golden_db_roundtrip(adeno, tmp_path):
     # the .sldb written for the adeno fixture reloads losslessly
-    from slimm_tpu.database import SlimmDatabase
+    from slimm_jax.database import SlimmDatabase
 
     ds, db = adeno
     p = str(tmp_path / "adeno.sldb")

@@ -1,7 +1,7 @@
 import numpy as np
 
-from slimm_tpu.io import AlignmentFile, collect_bam_files, tsv_file_name
-from slimm_tpu.io.files import get_bam_files_in_directory
+from slimm_jax.io import AlignmentFile, collect_bam_files, tsv_file_name
+from slimm_jax.io.files import get_bam_files_in_directory
 
 
 def test_sam_header(toy_dir):

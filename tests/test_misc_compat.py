@@ -6,7 +6,7 @@ import math
 
 import pytest
 
-from slimm_tpu.misc_compat import (calculate_alignment_score, get_lca_tree,
+from slimm_jax.misc_compat import (calculate_alignment_score, get_lca_tree,
                                    get_lca_tree_list, get_taxon_id,
                                    get_taxon_id_pos, mean, median, std_dev,
                                    variance)

@@ -1,4 +1,4 @@
-"""Real multi-process jax.distributed execution (VERDICT r1 item 4).
+"""Real multi-process jax.distributed execution.
 
 Spawns 2 OS processes that initialize the distributed runtime on CPU (2
 virtual devices each) and profile host-sharded reads through
@@ -56,8 +56,8 @@ def test_two_process_distributed_matches_single(tmp_path):
     assert os.path.exists(out_tsv), outs[0]
 
     # single-process reference rows
-    from slimm_tpu.config import EngineOptions, ProfileOptions
-    from slimm_tpu.engine import profile_file
+    from slimm_jax.config import EngineOptions, ProfileOptions
+    from slimm_jax.engine import profile_file
     from tests.toy import build_toy_dataset, build_toy_db
 
     ref_dir = tmp_path / "ref"

@@ -1,24 +1,19 @@
 """Native C++ decoder / baseline vs the Python reference implementations."""
 
-import subprocess
-
 import numpy as np
 import pytest
 
-from slimm_tpu.io import AlignmentFile
-from slimm_tpu.io import native
+from slimm_jax.io import AlignmentFile
+from slimm_jax.io import native
 
 from tests.toy import build_toy_db, make_records, write_bam, write_sam
 
 
 @pytest.fixture(scope="session", autouse=True)
 def ensure_native_built():
+    # available() builds the library from native/ on first use
     if not native.available():
-        from slimm_tpu.io.native_build import build
-        try:
-            build(verbose=False)
-        except (subprocess.CalledProcessError, FileNotFoundError):
-            pytest.skip("native toolchain unavailable")
+        pytest.skip("native toolchain unavailable")
 
 
 def assert_batches_equal(a, b):
@@ -68,9 +63,9 @@ def test_baseline_counters_match_oracle(toy_dir):
     """The C++ single-core baseline reproduces the oracle's counters."""
     import copy
 
-    from slimm_tpu.config import ProfileOptions
-    from slimm_tpu.database import tensorize
-    from slimm_tpu.oracle import OracleProfiler
+    from slimm_jax.config import ProfileOptions
+    from slimm_jax.database import tensorize
+    from slimm_jax.oracle import OracleProfiler
 
     db = build_toy_db(toy_dir)
     af = AlignmentFile(toy_dir.sam_path)
@@ -108,8 +103,8 @@ def test_baseline_counters_match_oracle(toy_dir):
 
 
 def test_engine_uses_native_decoder(toy_dir):
-    from slimm_tpu.config import EngineOptions
-    from slimm_tpu.engine.pipeline import open_alignment_file
+    from slimm_jax.config import EngineOptions
+    from slimm_jax.engine.pipeline import open_alignment_file
 
     af = open_alignment_file(toy_dir.sam_path, EngineOptions(use_native=True))
     assert isinstance(af, native.NativeAlignmentFile)
@@ -131,8 +126,8 @@ def test_hash_read_names_mode_matches(toy_dir):
 def test_hash_read_names_engine_parity(toy_dir):
     import copy
 
-    from slimm_tpu.config import EngineOptions, ProfileOptions
-    from slimm_tpu.engine import profile_file
+    from slimm_jax.config import EngineOptions, ProfileOptions
+    from slimm_jax.engine import profile_file
     from tests.toy import build_toy_db
 
     db = build_toy_db(toy_dir)
@@ -151,7 +146,7 @@ def test_stream_take_v2_matches_host_pack(toy_dir):
     # the C++ v2 piece encoder (stpu_stream_take_v2) must produce byte-
     # identical arrays to the host reference pack (pack_records_compact2):
     # boundary bitmap, rid cast, uint32-wrap center binning, zero padding
-    from slimm_tpu.engine.pipeline import pack_records_compact2
+    from slimm_jax.engine.pipeline import pack_records_compact2
 
     whole = native.NativeAlignmentFile(toy_dir.sam_path).load()
     af = native.NativeAlignmentFile(toy_dir.sam_path)
@@ -185,7 +180,7 @@ def test_piece_v2x_plan_matches_numpy(toy_dir):
     """stpu_stream_take_v2x's (n_reads, max_run) == the numpy recompute
     from the boundary bits it wrote (the overlap path's per-piece segment
     plan source)."""
-    from slimm_tpu.io import native
+    from slimm_jax.io import native
 
     if not native.available():
         import pytest

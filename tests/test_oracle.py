@@ -1,9 +1,9 @@
 import numpy as np
 import pytest
 
-from slimm_tpu.config import ProfileOptions
-from slimm_tpu.oracle import OracleProfiler, average_read_length
-from slimm_tpu.taxonomy import Rank
+from slimm_jax.config import ProfileOptions
+from slimm_jax.oracle import OracleProfiler, average_read_length
+from slimm_jax.taxonomy import Rank
 
 from tests.toy import READ_LEN, build_toy_db, make_records
 

@@ -8,9 +8,9 @@ import pytest
 
 import jax
 
-from slimm_tpu.config import EngineOptions, ProfileOptions
-from slimm_tpu.engine import profile_file
-from slimm_tpu.parallel import ShardedRunner, make_mesh
+from slimm_jax.config import EngineOptions, ProfileOptions
+from slimm_jax.engine import profile_file
+from slimm_jax.parallel import ShardedRunner, make_mesh
 
 from tests.test_engine import assert_states_equal, run_both
 from tests.toy import build_toy_db, build_toy_dataset
@@ -45,7 +45,7 @@ def test_route_shard_balances_periodic_skew():
     # adversarial input: multi-hit reads recur every S reads — plain
     # read_id % S would put every extra record on one shard; the hashed
     # routing keeps the padded row length near the even split
-    from slimm_tpu.parallel.mesh import route_shard
+    from slimm_jax.parallel.mesh import route_shard
 
     S = 8
     n_reads = 80_000
@@ -73,8 +73,8 @@ def test_multihost_runner_single_process(toy_dir):
     # results must equal the plain single-device engine bit-for-bit
     import copy
 
-    from slimm_tpu.config import EngineOptions, ProfileOptions
-    from slimm_tpu.parallel.multihost import MultiHostRunner, shard_paths
+    from slimm_jax.config import EngineOptions, ProfileOptions
+    from slimm_jax.parallel.multihost import MultiHostRunner, shard_paths
     from tests.toy import build_toy_db
 
     db = build_toy_db(toy_dir)
@@ -108,7 +108,7 @@ def test_model_sharded_matches_oracle(toy_dir, data, model):
 @pytest.mark.parametrize("make_runner", [
     lambda: ShardedRunner(num_shards=4),
     lambda: ShardedRunner(num_shards=2, model_shards=2),
-    lambda: __import__("slimm_tpu.parallel.multihost",
+    lambda: __import__("slimm_jax.parallel.multihost",
                        fromlist=["MultiHostRunner"]).MultiHostRunner(),
 ], ids=["data4", "data2xmodel2", "multihost"])
 def test_sharded_no_coverage_fetch(toy_dir, make_runner):
@@ -147,7 +147,7 @@ def test_model_sharded_per_device_memory_drops():
     # whole point of the model axis is that bin-state memory shrinks with
     # the model degree (replicated histograms are what the reference's
     # `references` vector would cost per device)
-    from slimm_tpu.engine.pipeline import _pass_a_local
+    from slimm_jax.engine.pipeline import _pass_a_local
     import jax.numpy as jnp
 
     total_bins_pad = 8 * 1024

@@ -5,7 +5,7 @@ import gzip
 import io
 import os
 
-from slimm_tpu.tools.preprocess import (
+from slimm_jax.tools.preprocess import (
     AssemblyCandidate, build_plan, load_taxonomy_dmp, merge_genome_file,
     merge_genomes, parse_assembly_summary, parse_categories, reduce_taxonomy,
     select_genome, write_reduced_dmp)
@@ -83,7 +83,7 @@ def test_merge_genome_file_kraken_headers(tmp_path):
     assert text[3] == "N" * 10
     assert "plasmid" not in out.getvalue()
     # and the header parses back to the accession the DB builder expects
-    from slimm_tpu.taxonomy import accession_id
+    from slimm_jax.taxonomy import accession_id
     assert accession_id(text[0][1:]) == "ACC1"
 
 

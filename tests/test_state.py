@@ -1,6 +1,6 @@
 import numpy as np
 
-from slimm_tpu.state import fmt_float, quantile_cut_off, seq_sum_f32
+from slimm_jax.state import fmt_float, quantile_cut_off, seq_sum_f32
 
 
 class TestQuantileCutOff:
@@ -72,7 +72,7 @@ class TestNativePropagate:
         import copy
 
         import profile_finalize as pf
-        from slimm_tpu.io import native
+        from slimm_jax.io import native
 
         if not native.available():
             import pytest

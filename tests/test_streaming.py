@@ -1,4 +1,4 @@
-"""Chunk-streaming decode + profile (VERDICT r1 item 1).
+"""Chunk-streaming decode + profile.
 
 The streaming path must be BIT-identical to the whole-file fused dispatch:
 same dataflow, chunked, with pass A accumulating histograms across chunk
@@ -8,15 +8,14 @@ plans, and accumulator donation are all exercised.
 """
 
 import copy
-import subprocess
 
 import numpy as np
 import pytest
 
-from slimm_tpu.config import EngineOptions, ProfileOptions
-from slimm_tpu.engine import profile_file
-from slimm_tpu.engine.pipeline import profile_file_streaming
-from slimm_tpu.io import native
+from slimm_jax.config import EngineOptions, ProfileOptions
+from slimm_jax.engine import profile_file
+from slimm_jax.engine.pipeline import profile_file_streaming
+from slimm_jax.io import native
 
 from tests.test_engine import assert_states_equal, run_both
 from tests.toy import build_toy_dataset, build_toy_db, write_bam, write_sam
@@ -24,12 +23,9 @@ from tests.toy import build_toy_dataset, build_toy_db, write_bam, write_sam
 
 @pytest.fixture(scope="session", autouse=True)
 def ensure_native_built():
+    # available() builds the library from native/ on first use
     if not native.available():
-        from slimm_tpu.io.native_build import build
-        try:
-            build(verbose=False)
-        except (subprocess.CalledProcessError, FileNotFoundError):
-            pytest.skip("native toolchain unavailable")
+        pytest.skip("native toolchain unavailable")
 
 
 def test_stream_reader_matches_whole_file(toy_dir, tmp_path):
@@ -110,6 +106,28 @@ def test_streaming_profile_matches_oracle(toy_dir, chunk):
     assert_states_equal(st_o, st_s)
 
 
+def test_streaming_plan_before_eof(tmp_path, monkeypatch):
+    # the stream decoder knows the file's longest read only at EOF; until
+    # then max_targets reads 0.  Each chunk's segment plan must come from
+    # the chunk itself, or reads with more targets than the plan's window
+    # are reduced wrongly.  Simulate a decoder that is never at EOF when a
+    # chunk is taken, on reads of up to 3 targets.
+    import bench
+
+    w = bench.make_workload(20_000, 30, seed=3)
+    sam = str(tmp_path / "runs3.sam")
+    bench.write_bench_sam(sam, w, 30)
+    db = bench.make_bench_db(w, 30)
+    st_w = profile_file(ProfileOptions(), copy.deepcopy(db), sam,
+                        engine=EngineOptions(phase_log=False))
+    monkeypatch.setattr(native.NativeStreamReader, "max_targets",
+                        property(lambda self: 0))
+    st_s = profile_file_streaming(
+        ProfileOptions(), copy.deepcopy(db), sam,
+        engine=EngineOptions(phase_log=False), chunk_targets=4096)
+    assert_states_equal(st_w, st_s)
+
+
 def test_streaming_profile_no_coverage(toy_dir):
     st_o, _ = run_both(toy_dir)
     db = copy.deepcopy(build_toy_db(toy_dir))
@@ -141,7 +159,7 @@ def test_bam_prefetch_backpressure(tmp_path):
     # order; decode must equal the SAM twin record-for-record.  Uses the
     # bench workload writers (vectorized), ~350k records ~= 97 MB raw.
     import bench
-    from slimm_tpu.io import native
+    from slimm_jax.io import native
 
     if not native.available():
         import pytest
@@ -172,11 +190,11 @@ def test_bam_prefetch_backpressure(tmp_path):
 
 @pytest.mark.parametrize("data,model", [(8, 1), (4, 2), (2, 4)])
 def test_streaming_sharded_matches_whole(toy_dir, data, model):
-    # streaming x sharding composition (VERDICT r2 item 2): chunked
+    # streaming x sharding composition: chunked
     # dispatch over a (data x model) mesh is bit-equal to the
     # single-device whole-file dispatch — partial per-data-shard
     # histograms merge with ONE integer psum at the cutoffs/finalize
-    from slimm_tpu.parallel import ShardedRunner
+    from slimm_jax.parallel import ShardedRunner
 
     db = build_toy_db(toy_dir)
     st_w = profile_file(ProfileOptions(), copy.deepcopy(db),
@@ -193,7 +211,7 @@ def test_streaming_sharded_matches_whole(toy_dir, data, model):
 def test_streaming_sharded_large_no_coverage(tmp_path):
     # abundance-only mode (no -ro/-co): per-contig u2 counts ride the
     # small fused histogram; larger random input forces several chunks
-    from slimm_tpu.parallel import ShardedRunner
+    from slimm_jax.parallel import ShardedRunner
 
     ds = build_toy_dataset(str(tmp_path), n_extra=3000, seed=31)
     db = build_toy_db(ds)
@@ -213,7 +231,7 @@ def test_streaming_sharded_large_no_coverage(tmp_path):
 def test_streaming_sharded_host_cache(toy_dir):
     # force the host-copy chunk cache (zero device budget → pass B
     # re-uploads every chunk)
-    from slimm_tpu.parallel import ShardedRunner
+    from slimm_jax.parallel import ShardedRunner
 
     db = build_toy_db(toy_dir)
     st_w = profile_file(ProfileOptions(), copy.deepcopy(db),
@@ -228,7 +246,7 @@ def test_streaming_sharded_host_cache(toy_dir):
 
 def test_streaming_multihost_runner_single_process(toy_dir):
     # MultiHostRunner degenerates to the 1-D sharded runner in one process
-    from slimm_tpu.parallel.multihost import MultiHostRunner
+    from slimm_jax.parallel.multihost import MultiHostRunner
 
     db = build_toy_db(toy_dir)
     st_w = profile_file(ProfileOptions(), copy.deepcopy(db),
@@ -299,7 +317,7 @@ def test_overlap_non_grouped(toy_dir, tmp_path):
     # the whole-file overlap path accepts coordinate-sorted input (the
     # pieces upload after the EOF regroup, still one fused dispatch) —
     # _profile_file_overlap must NOT bail to the standard path
-    from slimm_tpu.engine.pipeline import _profile_file_overlap
+    from slimm_jax.engine.pipeline import _profile_file_overlap
 
     sam = write_sam(str(tmp_path), _non_grouped_records(400, 2),
                     name="nongrouped2.sam")
@@ -316,7 +334,7 @@ def test_overlap_non_grouped(toy_dir, tmp_path):
 
 def test_streaming_sharded_non_grouped(toy_dir, tmp_path):
     # (data x model) sharded streaming over coordinate-sorted input
-    from slimm_tpu.parallel import ShardedRunner
+    from slimm_jax.parallel import ShardedRunner
 
     sam = write_sam(str(tmp_path), _non_grouped_records(),
                     name="nongrouped.sam")
@@ -452,7 +470,7 @@ def test_streaming_v1_int32_positions_matches(toy_dir, monkeypatch):
     # positions, host pack_records_compact, decode-ahead thread) — force
     # it by shrinking the v2 gate and check bit-equality with both the
     # whole-file path and the default v2 streaming
-    from slimm_tpu.engine import pipeline as P
+    from slimm_jax.engine import pipeline as P
 
     db = build_toy_db(toy_dir)
     st_w = profile_file(ProfileOptions(), copy.deepcopy(db),

@@ -1,4 +1,4 @@
-from slimm_tpu.taxonomy import (
+from slimm_jax.taxonomy import (
     LINEAGE_LENGTH,
     Rank,
     accession_id,

@@ -260,8 +260,8 @@ def build_toy_dataset(d: str, n_extra: int = 0, seed: int = 0) -> ToyDataset:
 
 
 def build_toy_db(dataset: ToyDataset):
-    from slimm_tpu.config import BuildOptions
-    from slimm_tpu.database import build_database
+    from slimm_jax.config import BuildOptions
+    from slimm_jax.database import build_database
 
     opts = BuildOptions(
         fasta_path=dataset.fasta_path,
